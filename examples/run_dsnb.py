@@ -4,7 +4,7 @@ golden output (mirrors /root/reference/test.py:6-59).
 Evolves the Diffuse Supernova Neutrino Background flux with a 5 MeV-scale
 scalar mediator, s-channel only, massless lightest neutrino (NO), and
 writes the spectrum in the reference's exact output format. Also runs a
-small (g, mphi) grid scan — the TPU-native replacement for the
+small (g, mphi) grid scan — the batched replacement for the
 reference's serial set_parameters()+evolve() loop.
 
 Run: python examples/run_dsnb.py [outfile]
@@ -52,7 +52,7 @@ if len(sys.argv) > 1:
     save_spectrum(sys.argv[1], energies, flx)
     print(f"# wrote {sys.argv[1]}")
 
-# --- TPU-native parameter scan: one compiled launch for the whole grid ---
+# --- batched parameter scan: one compiled launch for the whole grid ---
 params = nu.param_grid(
     mphi_vals=np.geomspace(1e5, 1e8, 8),
     g_vals=np.geomspace(1e-7, 1e-5, 4),

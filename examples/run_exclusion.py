@@ -22,8 +22,7 @@ non_resonant=True AND phiphi=True (every channel the reference enables,
 nuSIprop.hpp:166-170) at 500 energy bins (the BASELINE.json metric
 point) on the same DSNB science window — run as batched chunked
 launches. This is the regime the serial reference would grind through
-at ~0.65 s/point x grid; here it is a few compiled launches (recorded
-TPU wall in BENCH_NOTES.md, round 3).
+at ~0.65 s/point x grid; here it is a few compiled launches.
 
 Run: python examples/run_exclusion.py [n_mphi] [n_g] [contour_out.txt]
      python examples/run_exclusion.py --production [n_mphi] [n_g] [out]
@@ -51,17 +50,15 @@ ap.add_argument("--production", action="store_true",
 ap.add_argument("--bins", type=int, default=None,
                 help="energy bins [quick: 100, production: 500]")
 ap.add_argument("--chunk", type=int, default=32,
-                help="points per compiled launch in production mode "
-                     "(32 = the warm TPU batch shape and the measured "
-                     "phi-phi sweet spot, BENCH_NOTES round 3)")
+                help="points per compiled launch in production mode")
 ap.add_argument("--sharded", action="store_true",
                 help="shard each chunk over all visible devices")
 ap.add_argument("--f32-tables", action="store_true",
-                help="force the f32 quadrature alpha build (production "
-                     "TPU resolution picks it automatically; this flag "
-                     "is for coarse-grid CPU smoke runs, where it skips "
-                     "the very slow LLVM compiles of the batched f64 "
-                     "closed-form channel programs)")
+                help="use the f32 quadrature alpha build "
+                     "(table_dtype='f32') instead of the f64 closed "
+                     "forms; on coarse-grid CPU smoke runs it skips the "
+                     "very slow LLVM compiles of the batched f64 "
+                     "closed-form channel programs")
 args = ap.parse_args()
 
 n_mphi = args.n_mphi if args.n_mphi is not None else (16 if args.production
@@ -78,8 +75,7 @@ if args.production:
     # t/u/interference channels + spline-backed phi-phi
     # (nuSIprop.hpp:166-170) — on the same DSNB science window as quick
     # mode, at production resolution (500 bins = the BASELINE.json
-    # metric point, whose staged TPU programs are the bench-warm
-    # shapes).
+    # metric point, whose staged programs are the bench's shapes).
     cfg = nu.Config(N_bins_E=args.bins or 500, lEmin=4.0, lEmax=9.0,
                     zmax=5.0, non_resonant=True, phiphi=True,
                     table_dtype="f32" if args.f32_tables else "auto")
@@ -95,7 +91,7 @@ mntot = float(np.sqrt(7.42e-5) + np.sqrt(2.514e-3))
 # mock observation: free-streaming limit (coupling too weak to matter).
 # In production mode, run it THROUGH a chunk-shaped batch so it reuses
 # the same compiled batched programs as the scan (an unbatched evolve
-# would pay its own cold TPU compile of every staged program).
+# would pay its own cold compile of every staged program).
 mock_p = nu.PhysicsParams.create(5e6, 1e-12, mntot, 2.0, 6.0)
 if args.production:
     import jax as _jax
@@ -137,9 +133,8 @@ t0 = time.perf_counter()
 if args.production:
     import jax
 
-    # chunked launches: every chunk reuses ONE compiled batch shape
-    # (the warm TPU shape is 64); pad the tail by repeating the last
-    # point. --sharded additionally splits each chunk over the mesh.
+    # chunked launches: every chunk reuses ONE compiled batch shape;
+    # pad the tail by repeating the last point. --sharded additionally splits each chunk over the mesh.
     B = max(1, min(args.chunk, n))
     outs = []
     for c0 in range(0, n, B):

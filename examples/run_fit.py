@@ -25,11 +25,6 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-import jax
-
-# the f64 marches are the differentiated ones; CPU is the right backend
-jax.config.update("jax_platforms", "cpu")
-
 import nusiprop_tpu as nu
 
 steps = int(sys.argv[1]) if len(sys.argv) > 1 else 150

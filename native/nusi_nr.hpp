@@ -8,7 +8,7 @@
 // Taylor guards, the "negative => 3-pt Gauss-Legendre rescue" fallbacks,
 // the alpha_tu rescue-shadowing quirk, and the coordinate floor. The
 // special functions mirror ops/specfun.py (which replaces GSL/the
-// polylogarithm library on TPU).
+// polylogarithm library on the device).
 
 #pragma once
 

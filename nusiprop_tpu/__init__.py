@@ -1,62 +1,34 @@
-"""nusiprop_tpu — a TPU-native neutrino self-interaction cascade engine.
+"""nusiprop_tpu — a neutrino self-interaction cascade engine in JAX.
 
 Evolves an astrophysical neutrino flux from redshift ``zmax`` to ``z=0`` in
 the presence of scalar neutrino self-interactions with the cosmic neutrino
 background, matching the physics of the reference C++ implementation
-(quarkquartet/nuSIprop; arXiv:2107.13568) while being designed from scratch
-for TPUs: every kernel table is a vectorized JAX array program, the redshift
-march is a ``jax.lax.scan``, and parameter-grid scans batch via ``vmap`` and
-shard over device meshes via ``jax.sharding``.
+(quarkquartet/nuSIprop; arXiv:2107.13568) as array programs: every kernel
+table is a vectorized JAX program, the redshift march is a
+``jax.lax.scan``, and parameter-grid scans batch via ``vmap`` and shard
+over device meshes via ``jax.sharding``.
 
 The engine requires float64 (the evolved flux spans ~60 decades); importing
 this package enables JAX x64 mode.
 """
 
+import pathlib as _pathlib
+
 import jax as _jax
 
 # The physics requires float64: the golden-configuration flux spans
 # 1e11 .. 1e-57 (cf. reference output/data_massless.txt), far beyond
-# float32 range. TPU executes f64 via emulation; the arrays are tiny and
-# throughput comes from batching, so this is the right default.
+# float32 range.
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: TPU compiles of the evolve programs run
-# minutes (f64-emulated transcendental graphs); caching them across
-# processes makes every shape a one-time cost. Respect an explicit
-# user/caller setting.
-#
-# The directory is salted with a host-ISA fingerprint: XLA:CPU entries
-# are ahead-of-time machine code whose cache key does NOT cover the
-# host's CPU features, so an entry written on one machine can load on
-# another with unsupported instructions (observed as cpu_aot_loader
-# feature-mismatch warnings and intermittent SIGILL/SIGABRT). Salting
-# keeps a same-host cache warm while giving a different host a clean
-# slate instead of poisoned artifacts.
-
-
-def _host_fingerprint() -> str:
-    import hashlib
-    import platform
-
-    ident = platform.machine()
-    try:
-        with open("/proc/cpuinfo") as fh:
-            for line in fh:
-                if line.startswith(("flags", "Features")):
-                    ident += line
-                    break
-    except OSError:
-        pass
-    return hashlib.sha1(ident.encode()).hexdigest()[:10]
-
+# Persistent compilation cache. JAX reads JAX_COMPILATION_CACHE_DIR
+# itself; when it is unset, the cache lives at one fixed path inside
+# the checkout (listed in .gitignore). The path is part of the cache's
+# key, so a directory that moved would never hit.
+CACHE_DIR = _pathlib.Path(__file__).resolve().parents[1] / ".jax_cache"
 
 if _jax.config.jax_compilation_cache_dir is None:
-    import os as _os
-
-    _jax.config.update(
-        "jax_compilation_cache_dir",
-        _os.path.expanduser(f"~/.cache/nusiprop_tpu/jax-{_host_fingerprint()}"))
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    _jax.config.update("jax_compilation_cache_dir", str(CACHE_DIR))
 
 from nusiprop_tpu.api import Evolver, pyprop
 from nusiprop_tpu.models.sources import register_source

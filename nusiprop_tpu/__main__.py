@@ -39,7 +39,7 @@ def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m nusiprop_tpu",
         description="Evolve an astrophysical neutrino flux through "
-                    "nu-SI interactions (TPU-native engine).")
+                    "nu-SI interactions.")
     phys = p.add_argument_group("physics parameters (nuSIprop.hpp:61-68)")
     phys.add_argument("--mphi", type=float, required=True,
                       help="mediator mass [eV]")
@@ -81,7 +81,7 @@ def _build_parser() -> argparse.ArgumentParser:
                               "trisolve_f32", "loop"),
                      help="march implementation (see Config.march)")
     eng.add_argument("--cpu", action="store_true",
-                     help="force the CPU backend (skip TPU init)")
+                     help="force the CPU backend (skip accelerator init)")
 
     out = p.add_argument_group("output")
     out.add_argument("-o", "--output", metavar="PATH",

@@ -8,7 +8,7 @@ naturally into two halves for a JAX engine:
   argument to jit; each distinct Config compiles once.
 * ``PhysicsParams`` — the five runtime-mutable physics parameters
   (nuSIprop.hpp:173-174). A registered pytree: vmap/pjit batch over them,
-  which is how parameter-grid scans become one batched TPU launch.
+  which is how parameter-grid scans become one batched launch.
 """
 
 from __future__ import annotations
@@ -17,6 +17,9 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+
+
+MARCHES = ("auto", "rank1", "rank1_f32", "trisolve", "trisolve_f32", "loop")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,22 +48,23 @@ class Config:
     # nuSIprop.hpp:659-662); "powerlaw" is the upstream SFR power-law
     # source (nuSIprop.hpp:648-657, commented out there).
     source: str = "dsnb"
-    # March implementation for the per-z energy sweep:
-    #   "auto"     — rank1 when s-channel-only, trisolve otherwise;
+    # March implementation for the per-z energy sweep. The policy reads
+    # this Config alone (transport._resolve_march), never the backend,
+    # so the CPU tests run exactly what an accelerator runs:
+    #   "auto"     — "trisolve" for non-resonant configs, "rank1"
+    #                otherwise (both float64);
     #   "rank1"    — O(NE) associative-scan sweep exploiting the exact
     #                rank-one structure of the s-channel alpha kernel
-    #                (TPU-native form of the reference's alpha_cum fast
-    #                path, nuSIprop.hpp:261-264, 273-278);
+    #                (the reference's alpha_cum fast path,
+    #                nuSIprop.hpp:261-264, 273-278);
     #   "rank1_f32" — rank1 preconditioned by the free-streaming
-    #                solution and run in NATIVE float32 (no f64
-    #                emulation on TPU); ~1e-5 round-off vs rank1;
+    #                solution and run in float32; ~1e-5 round-off vs
+    #                rank1;
     #   "trisolve" — the sweep as one scalar triangular solve (general
     #                kernels, f64);
     #   "trisolve_f32" — trisolve preconditioned by the free-streaming
-    #                solution and run in NATIVE f32 against the
-    #                normalized f32 alpha table (non-resonant configs;
-    #                the TPU default there — the f64-emulated per-step
-    #                matrix work cannot use the MXU);
+    #                solution and run in float32 against the normalized
+    #                f32 alpha table (non-resonant configs);
     #   "loop"     — literal descending-bin lax.scan (reference-shaped;
     #                kept as the cross-validation oracle).
     march: str = "auto"
@@ -69,17 +73,18 @@ class Config:
     # the latency-bound small-batch regime. Exact same arithmetic.
     march_unroll: int = 1
     # Kernel-table build precision:
-    #   "auto" — native f32 on TPU (CPU keeps true f64): for the
-    #            rank1_f32 march the s-channel closed forms run in f32
-    #            (kernels_f32); for non-resonant trisolve configs the
-    #            dominant (NEXT^2/2)-pair alpha table is built by f32
-    #            matrix-element-level quadrature (kernels_nr_f32) —
-    #            both are MORE accurate than the emulated-f64 closed
-    #            forms at their cancellation-dominated entries (see the
-    #            module docstrings and docs/DESIGN.md);
-    #   "f64"  — the shared float64 builders (kernels.py/kernels_nr.py);
-    #   "f32"  — force the native f32 build on any backend (requires
-    #            march='rank1_f32', or a non-resonant trisolve config).
+    #   "auto" — the builders of the march's own precision: the float64
+    #            closed forms (kernels.py/kernels_nr.py) for the f64
+    #            marches, the float32 builds (kernels_f32 /
+    #            kernels_nr_f32) for rank1_f32 and trisolve_f32;
+    #   "f64"  — the float64 builders;
+    #   "f32"  — the float32 builds: the s-channel closed forms in f32
+    #            for march='rank1_f32', the matrix-element quadrature
+    #            alpha table (kernels_nr_f32) for non-resonant configs.
+    #            The quadrature build is more accurate than the f64
+    #            closed forms at their cancellation-dominated
+    #            sub-resonance entries (module docstrings and
+    #            docs/DESIGN.md).
     table_dtype: str = "auto"
     # Out-of-table phi-phi spline lookups: the reference hard-exits
     # (interp.hpp:354-361); this engine clamps by default (documented
@@ -109,25 +114,29 @@ class Config:
                 f"unknown source model {self.source!r}; registered: "
                 f"{_sources.source_names()} (add your own with "
                 "sources.register_source)")
-        if self.march not in ("auto", "rank1", "rank1_f32", "trisolve",
-                              "trisolve_f32", "trisolve_pallas", "loop"):
-            raise ValueError(f"unknown march mode {self.march!r}")
-        if (self.march in ("trisolve_f32", "trisolve_pallas")
-                and not self.non_resonant):
+        if self.march == "trisolve_pallas":
             raise ValueError(
-                f"march={self.march!r} is a non-resonant march; "
+                "march='trisolve_pallas' was removed with its fused kernel; "
+                "use march='trisolve_f32' (the same float32 tables and "
+                "rows) or 'auto'")
+        if self.march not in MARCHES:
+            raise ValueError(f"unknown march mode {self.march!r}; "
+                             f"choose one of {MARCHES}")
+        if self.march == "trisolve_f32" and not self.non_resonant:
+            raise ValueError(
+                "march='trisolve_f32' is a non-resonant march; "
                 "s-channel-only configs use march='rank1_f32'")
         if self.march_unroll < 1:
             raise ValueError("march_unroll must be >= 1")
         if self.table_dtype not in ("auto", "f64", "f32"):
             raise ValueError(f"unknown table_dtype {self.table_dtype!r}")
         if (self.table_dtype == "f32" and self.march != "rank1_f32"
-                and not (self.non_resonant
-                         and self.march in ("auto", "trisolve"))):
+                and not (self.non_resonant and self.march
+                         in ("auto", "trisolve", "trisolve_f32"))):
             raise ValueError(
                 "table_dtype='f32' requires march='rank1_f32' (s-channel "
-                "configs) or a non-resonant trisolve/auto config (the f32 "
-                "alpha-table build)")
+                "configs) or a non-resonant trisolve/trisolve_f32/auto "
+                "config (the f32 alpha-table build)")
         if self.extrapolation not in ("clamp", "raise"):
             raise ValueError(
                 f"unknown extrapolation policy {self.extrapolation!r}; "

@@ -16,10 +16,9 @@ forward evolves via XLA reverse-mode, batched over a `vmap`'d
 multi-start exactly like `parallel.scan.grid_scan` batches forward
 scans.
 
-Only the float64 marches are differentiated (CPU or TPU-emulated):
-the f32 production marches are for forward scans; fits care about
-accuracy of the gradient direction, and the f64 evolve at fit-sized
-grids (<=100 bins) is fast everywhere.
+Only the float64 marches are differentiated: the f32 marches are for
+forward scans; fits care about accuracy of the gradient direction, and
+the f64 evolve at fit-sized grids (<=100 bins) is fast everywhere.
 """
 
 import dataclasses
@@ -51,15 +50,15 @@ def _unpack(x, base: PhysicsParams) -> PhysicsParams:
 
 def _require_differentiable_march(cfg: Config):
     """fit()/fisher() differentiate the float64 marches only; the f32
-    production marches (march='auto' on TPU) would silently put ~1e-5
+    marches (march='rank1_f32'/'trisolve_f32') would silently put ~1e-5
     round-off into the Jacobian — fatal for near-singular Fisher
     analysis."""
-    if transport._resolve_march(cfg) not in ("rank1", "trisolve", "loop"):
+    march = transport._resolve_march(cfg)
+    if march not in ("rank1", "trisolve", "loop"):
         raise ValueError(
-            "gradient-based inference differentiates the float64 marches; "
-            "use a config whose march resolves to 'rank1'/'trisolve'/"
-            "'loop' (march='auto' resolves to the non-differentiated f32 "
-            "march on TPU)")
+            f"gradient-based inference differentiates the float64 marches, "
+            f"not the f32 march {march!r}; use march='auto' (or "
+            f"'rank1'/'trisolve'/'loop')")
 
 
 def spectral_loss(flux_fla, target_fla, floor_rel=1e-12):

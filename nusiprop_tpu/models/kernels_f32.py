@@ -1,15 +1,15 @@
-"""Native-float32 s-channel kernel tables for the rank1_f32 march.
+"""Float32 s-channel kernel tables for the rank1_f32 march.
 
-The emulated-f64 table build dominates the headline evolve wallclock
-(~75-90% measured; BENCH_NOTES.md). For the s-channel (the reference's
-benchmark path, nuSIprop.hpp:779-791, 956-970, 1264-1275) the closed
-forms can run in the TPU's native float32 with full accuracy, because
+With the march in float32 the f64 table build is the larger part of
+the s-channel evolve. For the s-channel (the reference's benchmark
+path, nuSIprop.hpp:779-791, 956-970, 1264-1275) the closed forms can
+run in float32 with full accuracy, because
 naive f32 evaluation fails only through cancellation — and every
 cancellation here has an exact reformulation:
 
 1. **Coordinates in f64, transcendentals in f32.** s-1 and 1+t (the
    distance to the resonance) and the exact bin-width difference
-   d = sp-sm are precomputed in (emulated) f64 — a handful of
+   d = sp-sm are precomputed in f64 — a handful of
    elementwise ops — and cast. Computing s-1 in f32 would carry a
    1e-7*s absolute error that atan((s-1)/gr) amplifies by 1/gr for bin
    edges landing near the resonance.
@@ -33,15 +33,15 @@ cancellation here has an exact reformulation:
    (nuSIprop.hpp:799-810) with an exactly-reduced integrand.
 4. **Prefactors factored out.** The assembled tables for weak
    couplings sit below the f32 exponent window (rho ~ 1e-39 at the
-   golden g = 1e-6 — which the emulated-f64 TPU build silently flushes
-   too!). The builders return NORMALIZED tables with the per-table
+   golden g = 1e-6 — which an f64 emulated as float32 pairs would
+   silently flush too). The builders return NORMALIZED tables with the per-table
    prefactor returned separately as an f64 scalar, applied inside the
    f64 row groupings of transport._rank1_f32_rows where the exponent
    window machinery (pairing small with large factors) already lives.
 
 Validated against the f64 build + mpmath (tests/test_kernels_f32.py),
-end-to-end against the f64 march (tests/test_march.py), and on real
-TPU by tools/tpu_crosscheck.py --f32 [--g 1e-6].
+end-to-end against the f64 march (tests/test_march.py), and on the
+card by chip_smoke.py's f32_modes phase.
 """
 
 import math

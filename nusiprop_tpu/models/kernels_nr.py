@@ -13,7 +13,7 @@ returns ``mphi^2 *`` the reference value and each alpha/alphaTilde channel
 returns ``mphi^4 *`` the reference value, i.e. the explicit 1/mphi^2 or
 1/mphi^4 in the reference prefactors is dropped here and the table
 builders apply only ``|U|^2 / (2 mn)``. Prefactors are grouped as
-``(g^2/denominator) * g^2`` so no intermediate leaves the TPU-safe
+``(g^2/denominator) * g^2`` so no intermediate leaves float32's
 exponent range.
 
 Behavioral notes reproduced deliberately:
@@ -41,7 +41,7 @@ from nusiprop_tpu.ops.quadrature import gl3, gl3_2d, GL3_W, GL3_X
 
 PI = 3.141592653589793
 
-_TINY = 1e-30  # clamp floor, safely inside the TPU f64 exponent range
+_TINY = 1e-30  # clamp floor, safely inside float32's exponent range
 
 
 def _ln(x):
@@ -132,7 +132,7 @@ def gamma_st(sm, sp, g, gr):
     """s-t interference (nuSIprop.hpp:842-872). gr = Gamma/mphi.
 
     Complex arithmetic runs on (re, im) float64 pairs (ops/cplx.py) so the
-    channel compiles for TPU (no complex dtypes). The reference's second
+    channel compiles where complex dtypes are missing. The reference's second
     dilog pair is the conjugate of the first (z2 = conj(z1),
     nuSIprop.hpp:849-850), so d2 = conj(d1) and the combination
     Re d1 + Re d2 + gr (Im d2 - Im d1) collapses to 2 Re d1 - 2 gr Im d1.
@@ -156,7 +156,7 @@ def gamma_st(sm, sp, g, gr):
     l1psm = sf.log1p_safe(jnp.maximum(sm, 0.0))
     pref = -(g * g) / (32.0 * PI * (1.0 + gr2)) * (g * g)
     # log(1 + v^2/gr^2) in log space: at weak coupling gr^2 underflows
-    # the TPU-emulated-f64 exponent window and v^2/gr^2 becomes
+    # float32's exponent range and v^2/gr^2 becomes
     # inf -> NaN (specfun.log1p_sq_ratio docstring)
     l_sp1 = sf.log1p_sq_ratio(sp - 1.0, gr)
     l_sm1 = sf.log1p_sq_ratio(sm - 1.0, gr)
@@ -240,8 +240,7 @@ def _sum_parts(parts, like):
     return tot
 
 
-# RANGE SAFETY (TPU): the emulated-f64 exponent range is float32's
-# (~1e+/-38). A floored massless eigenstate gives dimensionless
+# RANGE SAFETY: stay inside float32's exponent range (~1e+/-38). A floored massless eigenstate gives dimensionless
 # coordinates down to |s|,|t| ~ 1e-24, whose negative powers (up to
 # 1/z^4, e.g. the alphatilde_st tail) overflow to inf — which then
 # survives the "negative => rescue" selection and poisons the table.
@@ -269,7 +268,7 @@ def gamma_nonresonant(sm, sp, g, mphi, ga, *, majorana, phiphi,
 
     ``channel`` selects one contribution ("t_u", "tu", "st", "pp") or
     "all" — the staged table builder (transport.build_tables) compiles
-    each channel as its own XLA program to keep TPU compile times sane.
+    each channel as its own XLA program to keep compile times modest.
     """
     gr = ga / mphi
     ok = sp >= _COORD_FLOOR
@@ -495,7 +494,7 @@ def alphatilde_st(tm, tp, g, gr, *, majorana: bool):
     arg_rp = cp.angle(cp.Cx(gr_a, 1.0 + tp) / den)
 
     # log(1 + (1+t)^2/gr^2) in log space (weak-coupling underflow of
-    # gr^2 on the emulated-f64 backend; specfun.log1p_sq_ratio)
+    # gr^2 under float32's exponent range; specfun.log1p_sq_ratio)
     l_tp1 = sf.log1p_sq_ratio(1.0 + tp, gr)
     l_tm1 = sf.log1p_sq_ratio(1.0 + tm, gr)
     if majorana:
@@ -769,7 +768,7 @@ def alpha_st(tm, tp, smp, spp, g, gr, *, majorana: bool):
 
     if not majorana:
         # (:1459-1463); log(1 + v^2/gr^2) in log space (weak-coupling
-        # gr^2 underflow on the emulated-f64 backend, log1p_sq_ratio)
+        # gr^2 underflow under float32's exponent range, log1p_sq_ratio)
         return pref * (
             2.0 * gr * jnp.arctan2(gr, smp_s - 1.0)
             - 2.0 * gr * jnp.arctan2(gr, spp_s - 1.0)
@@ -778,7 +777,7 @@ def alpha_st(tm, tp, smp, spp, g, gr, *, majorana: bool):
             - sf.log1p_sq_ratio(smp_s - 1.0, gr)
         ) * (tm - tp + sf.log1p_safe(-tm) - sf.log1p_safe(-tp))
 
-    # Complex pieces on (re, im) pairs — no complex dtypes (TPU).
+    # Complex pieces on (re, im) pairs — no complex dtypes.
     shape = jnp.broadcast_shapes(jnp.shape(tm), jnp.shape(smp_s))
     gr_a = jnp.broadcast_to(gr * jnp.ones(()), shape)
     dm = cp.Cx(jnp.broadcast_to(2.0 + tm, shape), -gr_a)  # 2 - i gr + t-
@@ -822,8 +821,8 @@ def alpha_st(tm, tp, smp, spp, g, gr, *, majorana: bool):
     labs_tm = _lnabs(1.0 + tm)
     labs_tp = _lnabs(1.0 + tp)
 
-    # log(1 + v^2/gr^2) in log space (weak-coupling gr^2 underflow on
-    # the emulated-f64 backend, specfun.log1p_sq_ratio)
+    # log(1 + v^2/gr^2) in log space (weak-coupling gr^2 underflow
+    # under float32's exponent range, specfun.log1p_sq_ratio)
     l_sm1 = sf.log1p_sq_ratio(smp_s - 1.0, gr)
     l_sp1 = sf.log1p_sq_ratio(spp_s - 1.0, gr)
     l_2tm = sf.log1p_sq_ratio(2.0 + tm, gr)
@@ -936,10 +935,10 @@ def alpha_pp_tail_bases(tm, tp, smp_s, spp_s):
     combination — C(t) = (1+t) ln(-1-t) - t ln(-t) (two ~|t| ln|t| terms
     collapsing to ~ln|t|), the h0/h1 column differences, base3 — is
     evaluated on ONE side in float64 before the cast, so the (3, N, 5)
-    x (3, 5, N) contraction can run on the MXU in the table dtype: at
-    batch 64 the dense elementwise-f64 tails materialized ~0.5 GB
-    emulated-f64 broadcast intermediates per buffer (the round-3 pp
-    batch-64 HBM wall); the factorized build materializes only the
+    x (3, 5, N) contraction can run as a matmul in the table dtype: at
+    batch 64 dense elementwise-f64 tails would materialize ~0.5 GB
+    broadcast intermediates per buffer; the factorized build
+    materializes only the
     (3, N, N) output. Cross-term f32 cancellation is bounded: each
     product is O(the regime's result scale) (pinned against the
     elementwise oracle by tests/test_pp_grid.py).
@@ -1010,13 +1009,13 @@ def alpha_pp_val(tm, tp, smp, spp, *, pp_tables):
     Dtype-following: the 64-point stencil contraction of the spline
     eval follows the table-values dtype (ops/interp.SplineND.astype),
     so f32-cast tables run the dominant op count of the pp channel in
-    native f32 on TPU; coordinates and the closed-form tails stay f64
+    f32; coordinates and the closed-form tails stay f64
     and are cast at the join.
 
     NOTE: this is the general per-query path. For whole bin-to-bin
     tables on the engine's log-uniform grids, kernels.alpha_pp_grid
     evaluates the same spline separably (axis-by-axis matmuls instead
-    of a 64-point gather stencil per pair) — the TPU production path.
+    of a 64-point gather stencil per pair) — the engine's path.
     """
     smp_s = jnp.maximum(smp, 4.0 + 1e-12)
     spp_s = jnp.maximum(spp, smp_s * (1.0 + 1e-12))
@@ -1047,7 +1046,7 @@ def alpha_pp(tm, tp, smp, spp, g, *, majorana: bool, pp_tables):
 def alpha_pp_norm(tm, tp, smp, spp, *, majorana: bool, pp_tables):
     """``alpha_pp`` WITHOUT the g^4 coupling, with the coordinate floors
     and range mask that ``alpha_nonresonant(channel="pp")`` would apply:
-    the pp channel's normalized contribution for the native-f32 march's
+    the pp channel's normalized contribution for the float32 march's
     (A32, pref = g^4) table fold (kernels.alpha_pp_table_norm). Stays in
     the spline-values dtype end to end."""
     ok = (-tp >= _COORD_FLOOR) & (spp >= _COORD_FLOOR)

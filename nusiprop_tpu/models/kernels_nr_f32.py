@@ -1,14 +1,13 @@
-"""Native-float32 non-resonant bin-to-bin (alpha) kernel table.
+"""Float32 non-resonant bin-to-bin (alpha) kernel table
+(``table_dtype="f32"``).
 
-The (NE+Nz)^2/2-pair alpha table is ~99% of a non-resonant evolve's
-wallclock on TPU when built with the emulated-f64 closed forms
-(BENCH_NOTES.md): every pair evaluates dilogarithm-heavy antiderivative
-differences (kernels_nr.py, after nuSIprop.hpp:1280-1474). This module
-replaces that build — for the alpha table only; the N-sized Gamma and
+The (NE+Nz)^2/2-pair alpha table dominates a non-resonant table build:
+with the f64 closed forms every pair evaluates dilogarithm-heavy
+antiderivative differences (kernels_nr.py, after
+nuSIprop.hpp:1280-1474). This module replaces that build — for the alpha table only; the N-sized Gamma and
 alphaTilde tables are ~300x cheaper and stay in f64 — with fixed-order
 Gauss-Legendre quadrature of the MATRIX-ELEMENT-LEVEL integrands over
-the narrow (2.3% x 2.3%) bin-pair domains, evaluated in the TPU's
-native float32:
+the narrow (2.3% x 2.3%) bin-pair domains, evaluated in float32:
 
 * The doubly-differential integrands are simple rationals with no
   cancellation anywhere: the t/u/tu shapes are the reference's own
@@ -201,7 +200,7 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
     Default: returned as the float64 (N, N) strict-upper table the f64
     trisolve march consumes (prefactor applied). ``raw=True`` returns
     ``(table32, pref)`` — the NORMALIZED float32 table plus its float64
-    g^4 prefactor — for the native-f32 trisolve march, which folds the
+    g^4 prefactor — for the float32 trisolve march, which folds the
     prefactor into its range-safe per-node row scales.
 
     ``Wf=None`` skips the |U|^2 eigenstate reduction and returns the
@@ -379,8 +378,8 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
                 mu = mu0 + dD                       # = -u, slice-constant
                 # u-dependent factors are slice-constant: ONE reciprocal
                 # of qv = 1 - u serves u_term, interference and su
-                # (round 5: the per-x-node divisions were ~the VPU cost
-                # of this build; with r = y/(y-1) the integrand is
+                # (the per-x-node divisions dominate the arithmetic of
+                # this build; with r = y/(y-1) the integrand is
                 # inv_x2 * (2 r^2 + c_i r + 2 c_u) — 3 divisions per
                 # node instead of 5-6, same math to 1 ulp)
                 inv_qv = 1.0 / (1.0 + mu)
@@ -492,7 +491,7 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
 
 
 # ---------------------------------------------------------------------------
-# Native-f32 non-resonant Gamma / alphaTilde tables (round 4)
+# Float32 non-resonant Gamma / alphaTilde tables
 # ---------------------------------------------------------------------------
 
 # Taylor coefficients (exact rationals, cast) of the three cancelling

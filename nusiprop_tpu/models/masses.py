@@ -1,7 +1,7 @@
 """Neutrino mass spectrum from the total mass and the measured splittings.
 
 The reference finds the lightest mass as a root of a quartic polynomial via
-GSL (aux.hpp:12-50). On TPU we solve the *monotone* constraint directly:
+GSL (aux.hpp:12-50). Here we solve the *monotone* constraint directly:
 
     NO: f(mL) = mL + sqrt(mL^2 + dm21) + sqrt(mL^2 + dm31) - mntot
     IO: f(mL) = mL + sqrt(mL^2 - dm32) + sqrt(mL^2 - dm32 - dm21) - mntot
@@ -27,9 +27,9 @@ from nusiprop_tpu import constants
 # Floor applied to each mass eigenvalue [eV]. Kernel contributions of an
 # eigenstate scale as mn * f(mn * E) / mn -> finite as mn -> 0, and for
 # mn < ~1e-8 the evaluated limit is flat to >10 significant digits, so
-# the floor only removes the 0/0. The value is chosen for TPU safety:
-# the f64 emulation on TPU inherits float32 exponent range (~1e+/-38),
-# and 1/(2*mn) factors must stay well inside it.
+# the floor only removes the 0/0. The value keeps 1/(2*mn) factors well
+# inside float32's exponent range (~1e+/-38), which the f32 paths
+# carry.
 MN_FLOOR = 1e-12
 
 N_BISECT = 200  # mntot * 2^-200: bisection exact to the last float64 bit

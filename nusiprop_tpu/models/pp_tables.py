@@ -16,7 +16,7 @@ factor on the n coordinate and |.| on the alpha value, nuSIprop.hpp:1483).
 
 Tables load either from reference-format float32 ``.bin`` files
 (text_to_binary.cpp layout) or from ``.npz`` files written by
-``tools/make_tables.py`` (the TPU-resident regeneration pipeline).
+``tools/make_tables.py`` (the on-device regeneration pipeline).
 """
 
 from typing import NamedTuple
@@ -112,8 +112,7 @@ def load_default() -> PPTables:
     end-to-end flux delta vs full resolution 1.5e-5, ~70x inside the
     1e-3 physics gate — tools/validate_full_tables.py). Full
     REFERENCE-resolution tables (5000x100 + 1000x1000x100,
-    xsec/tables_phiphi.py:21-59) regenerate in ~13 min on one TPU v5e
-    chip (measured 792 s, round 3):
+    xsec/tables_phiphi.py:21-59) regenerate on one accelerator with:
 
         python tools/make_tables.py --preset full --chunk 131072 \\
                --out data/pp_tables_full.npz

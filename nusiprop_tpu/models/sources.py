@@ -162,8 +162,8 @@ def lum_rows_extended(name, edges, zi, jdx, si, norm_total):
     int index of each bin's LOWER edge on the ladder (upper edge is
     jdx+1). Returns (T, NE) bin integrals, or None when ``name`` is a
     registered custom source (caller falls back to the per-node path).
-    The (E0-relative) groupings keep every intermediate inside the TPU
-    emulated-f64 exponent window for si <= ~4.
+    The (E0-relative) groupings keep every intermediate inside float32's
+    exponent range for si <= ~4.
     """
     if name == "dsnb":
         F0 = lum_int_fd(0.0, edges)

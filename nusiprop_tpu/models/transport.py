@@ -12,7 +12,7 @@ matrix, and bin-to-bin regeneration (alpha) feeds lower bins from all
 higher bins updated earlier in the same sweep (a block back-substitution
 in descending energy).
 
-TPU-native structure:
+Structure:
   * kernel tables are built ONCE on the extended bin axis (grids.py) as
     fused vectorized programs (kernels.py);
   * per z-node, the window of the extended tables relevant at that
@@ -20,16 +20,17 @@ TPU-native structure:
     window contiguous;
   * the redshift march is a `lax.scan` over z-nodes;
   * the descending-energy sweep inside a z-node is NOT a sequential loop
-    (a 500-step scalar-recurrence chain is pure latency on a TPU).
+    (a 500-step scalar-recurrence chain is pure latency on an
+    accelerator).
     Because the per-bin update  x_j = V_j + reg_j * U_j  is affine in the
     scalar regeneration feed  reg_j = sum_{m>j} K[j,m] * (Wf . x_m),
     the whole sweep closes into:
       - s-channel-only ("rank1"): K is exactly rank one, so reg follows a
         scalar affine recurrence solved in log depth with
-        `lax.associative_scan` — the TPU-native alpha_cum fast path;
+        `lax.associative_scan` — the parallel form of alpha_cum;
       - general kernels ("trisolve"): y_j = Wf . x_j satisfies one scalar
         strictly-triangular NE x NE linear system per z-node, solved with
-        a blocked triangular solve (MXU work instead of a scan chain);
+        a blocked triangular solve (matrix work instead of a scan chain);
   * everything is a pure function of a PhysicsParams pytree, so parameter
     grids batch with vmap and shard with pjit (parallel/scan.py).
 """
@@ -108,8 +109,8 @@ def _table_health(tables, tau):
         if t is None:
             continue
         # reduce in the table's OWN dtype (casting a batched (NEXT,
-        # NEXT) f32 table to TPU-emulated f64 first costs real ms and
-        # HBM); only the reduced scalars are promoted
+        # NEXT) f32 table to f64 first doubles its device-memory
+        # traffic); only the reduced scalars are promoted
         finite = jnp.isfinite(t)
         bad = bad + jnp.sum(~finite).astype(jnp.float64)
         t_ok = jnp.where(finite, t, jnp.zeros((), t.dtype))
@@ -164,29 +165,12 @@ def _source_lum(cfg: Config, z_src, Emin, Emax, si, norm_total):
 
 
 def _resolve_march(cfg: Config) -> str:
+    """The march a Config runs. Reads the Config alone, never the
+    backend: ``auto`` is the float64 ``trisolve`` march for non-resonant
+    configs and the float64 ``rank1`` march otherwise; the f32 marches
+    run only when asked for by name."""
     if cfg.march == "auto":
-        if cfg.non_resonant:
-            # On TPU: the fused Pallas march over the f32 quadrature
-            # alpha table (ops/march_tri — same table/row pipeline as
-            # trisolve_f32, whole march in one kernel; +55% end-to-end
-            # same-session, crosschecked to 5e-6 vs the CPU twin).
-            # Requires production-resolution bins (the table build's
-            # GL error scales as bin-width^6). Contexts that cannot
-            # host a pallas_call (vmap/chunked evolve_core) fall back
-            # to trisolve_f32 inside evolve_core.
-            if (jax.default_backend() == "tpu"
-                    and cfg.table_dtype != "f64"
-                    and (cfg.lEmax - cfg.lEmin) / cfg.N_bins_E <= 0.05):
-                return "trisolve_pallas"
-            return "trisolve"
-        # On TPU the native-f32 free-streaming-preconditioned march
-        # (plus its native-f32 table build) is ~30x faster than the
-        # emulated-f64 path AND more accurate at the table build's
-        # worst entries (kernels_f32 docstring); its ~5e-6 round-off
-        # sits far inside the 1e-3 physical gate. CPU keeps true f64.
-        if jax.default_backend() == "tpu":
-            return "rank1_f32"
-        return "rank1"
+        return "trisolve" if cfg.non_resonant else "rank1"
     if cfg.march in ("rank1", "rank1_f32") and cfg.non_resonant:
         raise ValueError(
             f"march={cfg.march!r} is exact only for the s-channel-only "
@@ -204,8 +188,8 @@ def _node_affine(pref, zdr, coup, lum, flux, Wf):
       U = M^-1 (pref * Wf)/zdr               (NE, 3)
     M per bin is I + offdiag(coup * Wf Wf^T / zdr) (nuSIprop.hpp:297-304).
 
-    RANGE SAFETY (TPU f64 emulation carries float32 exponent range): pref
-    = (1+z) dlogz / H is ~1e31, so U must not pick up any further large
+    RANGE SAFETY (the groupings stay inside float32's exponent range):
+    pref = (1+z) dlogz / H is ~1e31, so U must not pick up any further large
     factor before it meets the (tiny) regeneration feed — callers multiply
     bin widths into reg, never into U.
 
@@ -213,7 +197,7 @@ def _node_affine(pref, zdr, coup, lum, flux, Wf):
     (diag(d) + coup w w^T) x = r with d_k = zdr_k - coup w_k^2, w = Wf:
     a rank-one update of a diagonal, solved by Sherman-Morrison with a
     few (NE, 3) elementwise ops — no (NE, 3, 3) tensors, which both
-    slashes HBM traffic and cuts the emulated-f64 op count. The `loop`
+    slashes device-memory traffic and cuts the op count. The `loop`
     march keeps the adjugate _solve3 as an independent oracle
     (tests/test_march.py pins them together to 1e-11).
     """
@@ -232,7 +216,7 @@ def _node_affine(pref, zdr, coup, lum, flux, Wf):
 
 def _f32_precond_common(cfg: Config, gr, params: PhysicsParams,
                         norm_total, tblG, tblAt, w):
-    """Shared prologue of the two native-f32 row builders
+    """Shared prologue of the two float32 row builders
     (_rank1_f32_rows / _trisolve_f32_rows): per-node prefactors, the
     windowed Γ/α̃ table rows on the extended-index ladder, the
     factorized ladder source integrals (with per-node fallback for
@@ -281,26 +265,26 @@ def _f32_precond_common(cfg: Config, gr, params: PhysicsParams,
 
 def _rank1_f32_rows(cfg: Config, gr, params: PhysicsParams, norm_total,
                     tblG, tblAt, rho_ext, dE_ext, window=None, prefs=None):
-    """Per-z-node coefficient rows for the native-f32 march, plus the
+    """Per-z-node coefficient rows for the float32 march, plus the
     free-streaming preconditioner scale of the final node.
 
     Precondition the flux by the free-streaming solution: with
     S(t, j) = cumulative source counts (floored; any positive array is a
     valid preconditioner) and phi = F / (N0 S), every march variable
-    becomes an O(1)-ish ratio, so the whole sweep can run in f32 — the
-    TPU's native dtype — while the kernel tables and all coefficient
-    rows here are built in float64 and only then cast. Module-level so
-    tools/bench_split.py can time this stage on its own.
+    becomes an O(1)-ish ratio, so the whole sweep can run in f32 while
+    the kernel tables and all coefficient rows here are built in float64
+    and only then cast.
 
-    RANGE SAFETY: on TPU every "f64" intermediate here lives in
-    double-single arithmetic whose exponent range is float32's; anything
-    below ~1.2e-38 flushes to zero SILENTLY. rho*ndfac alone sits at
+    RANGE SAFETY: every grouping keeps its intermediate inside float32's
+    exponent range, so the rows survive an f64 emulated as float32 pairs
+    (where anything below ~1.2e-38 flushes to zero SILENTLY) as well as
+    the final cast. rho*ndfac alone sits at
     1e-40..1e-53 (it killed regeneration before the _RSCALE pairing
     below), and pref*d_w ~ 1e39 would overflow. Every grouping therefore
     pairs a small factor with a large one first. ``window`` is a hook
     applied after each grouping step — identity in production; the test
     suite passes a float32-window flush emulator so these pairings are
-    regression-checked without TPU hardware
+    regression-checked at full f64 precision
     (tests/test_march.py::test_f32_rows_survive_narrow_exponent_window).
     """
     w = window if window is not None else (lambda x: x)
@@ -335,7 +319,7 @@ def _rank1_f32_rows(cfg: Config, gr, params: PhysicsParams, norm_total,
 
 
 def _rank1_f32_scan(xs, Wf, NE: int, unroll: int = 1):
-    """The native-f32 redshift march over precomputed coefficient rows.
+    """The float32 redshift march over precomputed coefficient rows.
 
     Exactness is by construction (same affine recurrence as rank1); the
     cost is f32 round-off (~1e-5 after 78 steps, vs the 1e-3 physical
@@ -367,13 +351,10 @@ def _rank1_f32_scan(xs, Wf, NE: int, unroll: int = 1):
         # w . x = (w . r/d) / s  exactly under Sherman-Morrison
         a = 1.0 + (CF * PD) * (wu / s)
         b = CF * (wv / s)
-        # NOTE (negative result, measured): closing this recurrence via
-        # suffix cumulants on the MXU — cum_j = A_{j+1} sum_{m>j} b_m/A_m
-        # with A = exp(log1p(a-1) @ tril_ones), two matmuls per z-node —
-        # benched 3% SLOWER than the associative scan (1.63M vs 1.68M
-        # z-steps/s at batch 1024) and 7x noisier on the TPU crosscheck
-        # (3.5e-5 vs 5.1e-6: the exp/log round-trip), so the
-        # associative scan stays.
+        # Closing this recurrence via suffix cumulants instead —
+        # cum_j = A_{j+1} sum_{m>j} b_m/A_m with A = exp(log1p(a-1) @
+        # tril_ones), two matmuls per z-node — is ~7x noisier (the
+        # exp/log round-trip), so the associative scan stays.
         a_r = jnp.flip(a, axis=0)
         b_r = jnp.flip(b, axis=0)
 
@@ -395,7 +376,7 @@ def _rank1_f32_scan(xs, Wf, NE: int, unroll: int = 1):
 
 def _trisolve_f32_rows(cfg: Config, gr, params: PhysicsParams, norm_total,
                        tblG, tblAt, pref_A, window=None):
-    """Per-z-node coefficient rows for the native-f32 GENERAL-KERNEL
+    """Per-z-node coefficient rows for the float32 GENERAL-KERNEL
     march (march='trisolve_f32'), plus the preconditioner scale.
 
     Same free-streaming preconditioning and window discipline as
@@ -437,24 +418,21 @@ _SOLVE_BS = 128  # diagonal-block size of the nilpotent solver
 def _nilpotent_solve(N, q):
     """x = (I - N)^{-1} q for strictly-upper-triangular f32 N.
 
-    XLA's batched ``triangular_solve`` is substitution-latency bound
-    (~3.0 ms/step at the bench shapes, ~6x the pure HBM bound). But the
-    march matrix is I minus a NILPOTENT non-negative N, so the inverse
-    is the terminating Neumann product (I-N)^{-1} = prod_j (I+N^(2^j))
-    — log-depth MXU matmuls instead of a length-NE substitution chain.
+    XLA's batched ``triangular_solve`` is bound by the latency of its
+    length-NE substitution chain. But the march matrix is I minus a
+    NILPOTENT non-negative N, so the inverse is the terminating Neumann
+    product (I-N)^{-1} = prod_j (I+N^(2^j)) — log-depth matmuls instead
+    of a substitution chain.
 
-    Structure (round 4; the round-2 version interleaved per-block
-    squarings and matvecs as ~54 small sequential ops per solve, which
-    made it launch-latency bound at ~0.61 ms/step): the diagonal
-    _SOLVE_BS blocks are EXPLICITLY inverted all at once — one stacked
-    (NB, BS, BS) product-doubling chain, 2 batched matmuls per level —
-    and the block back-substitution then runs one full-width row-block
-    matvec + one inverse apply per block (~20 ops total per solve,
-    bigger and fewer: the MXU sees (batch*NB, BS, BS) matmuls).
-    Accuracy is unchanged: every entry of N is non-negative, so all
-    Neumann sums are cancellation-free. Matmuls force
-    Precision.HIGHEST: the default bf16 passes cost 3e-4 accuracy for
-    only 1.4x less wall (see BENCH_NOTES round 2).
+    Structure: the diagonal _SOLVE_BS blocks are EXPLICITLY inverted all
+    at once — one stacked (NB, BS, BS) product-doubling chain, 2 batched
+    matmuls per level — and the block back-substitution then runs one
+    full-width row-block matvec + one inverse apply per block (~20 ops
+    per solve, as (batch*NB, BS, BS) matmuls). Accuracy is unchanged:
+    every entry of N is non-negative, so all Neumann sums are
+    cancellation-free. Matmuls force Precision.HIGHEST: a reduced-
+    precision f32 matmul (bf16 passes, or TF32 on a GPU) costs ~3e-4
+    accuracy.
     """
     hi = lax.Precision.HIGHEST
     NE = q.shape[-1]
@@ -496,10 +474,9 @@ def _nilpotent_solve(N, q):
 
 
 def _trisolve_f32_scan(xs, A32ext, Wf, NE: int, unroll: int = 1):
-    """Native-f32 general-kernel march: per z-node one f32 triangular
-    solve against the windowed normalized alpha table (native f32
-    matmul/substitution — the f64-emulated march cannot use the MXU and
-    is ~30x slower per step). Returns preconditioned flux phi (3, NE)."""
+    """Float32 general-kernel march: per z-node one f32 triangular
+    solve against the windowed normalized alpha table. Returns
+    preconditioned flux phi (3, NE)."""
     f32 = jnp.float32
     Wf32 = Wf.astype(f32)
     Wf232 = Wf32 * Wf32
@@ -550,41 +527,31 @@ def _channels(cfg: Config):
 
 
 def _use_f32_alpha(cfg: Config, allow_f32_march: bool = False) -> bool:
-    """Whether the non-resonant alpha table uses the native-f32
+    """Whether the non-resonant alpha table uses the float32
     quadrature build (kernels_nr_f32) instead of the f64 closed forms.
 
-    Enabled for non-resonant trisolve configs on TPU (table_dtype
-    "auto") or anywhere when forced with table_dtype="f32". Besides
-    being ~the whole non-resonant speedup on TPU, the quadrature build
-    is MORE accurate than the closed forms at sub-resonance pairs,
-    where the f64 antiderivative differences cancel to pure round-off
-    noise up to ~1e9x the true value (positive noise evades the
-    reference's negative-only rescue; see kernels_nr_f32 docstring and
-    tests/test_kernels_nr_f32.py's scipy referee).
+    Only when asked for with table_dtype="f32" (on a non-resonant
+    trisolve config; ``allow_f32_march`` admits trisolve_f32 too). The
+    quadrature build is MORE accurate than the closed forms at
+    sub-resonance pairs, where the f64 antiderivative differences
+    cancel to pure round-off noise up to ~1e9x the true value (positive
+    noise evades the reference's negative-only rescue; see the
+    kernels_nr_f32 docstring and tests/test_kernels_nr_f32.py's scipy
+    referee); its GL3 error scales as (bin width)^6, ~3e-6 at 0.05
+    decades per bin.
     """
-    if not cfg.non_resonant or cfg.table_dtype == "f64":
+    if not cfg.non_resonant or cfg.table_dtype != "f32":
         return False
     ok_marches = (("trisolve", "trisolve_f32") if allow_f32_march
                   else ("trisolve",))
-    if _resolve_march(cfg) not in ok_marches:
-        return False
-    if cfg.table_dtype == "f32":
-        return True
-    # auto: the GL3 quadrature error scales as (bin width)^6 — require
-    # production-resolution bins (<= 0.05 decades ~ 12%: worst-entry
-    # error ~3e-6; at the bench's 0.01 decades it is ~1e-10). Coarser
-    # grids keep the f64 closed forms.
-    if (cfg.lEmax - cfg.lEmin) / cfg.N_bins_E > 0.05:
-        return False
-    return jax.default_backend() == "tpu"
+    return _resolve_march(cfg) in ok_marches
 
 
 def _pp_f32(pp_tables):
     """phi-phi tables with the 3-D alpha spline values cast to f32: the
     64-point stencil contraction — the dominant op count of the pp
-    channel build — then runs in native f32 instead of TPU-emulated f64
-    (ops/interp.SplineND.astype; ~1e-7 relative round-off against the
-    ~1e-3 physics gate). The cheap O(N) 2-D alphatilde spline stays f64.
+    channel build — then runs in f32 (ops/interp.SplineND.astype; ~1e-7
+    relative round-off against the ~1e-3 physics gate). The cheap O(N) 2-D alphatilde spline stays f64.
     """
     if pp_tables is None:
         return None
@@ -611,7 +578,7 @@ def _pp_norm_builder_jit(cfg: Config, batched: bool):
 
 @lru_cache(maxsize=None)
 def _gt_f32_builder_jit(cfg: Config, batched: bool):
-    """Native-f32 non-resonant Gamma + alphaTilde builder (one XLA
+    """Float32 non-resonant Gamma + alphaTilde builder (one XLA
     program for both tables; kernels_nr_f32.nr_gamma_alphatilde_f32)."""
     from nusiprop_tpu.models import kernels_nr_f32
 
@@ -686,9 +653,9 @@ def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None,
     SEPARATE XLA programs.
 
     The monolithic non-resonant table graph (7 channels x dilog-heavy
-    closed forms x f64 emulation) takes >19 min to compile on TPU; each
-    per-channel program is a modest compile and caches independently in
-    the persistent compilation cache. Pure staging — the summed tables
+    closed forms) is one very large compile; each per-channel program is
+    a modest compile and caches independently in the persistent
+    compilation cache. Pure staging — the summed tables
     match the in-graph build to float64 round-off (association of the
     channel sum differs at ~1 ulp).
 
@@ -702,18 +669,12 @@ def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None,
     # quadrature table build still applies whenever the all-f32
     # conditions hold (incl. when auto would resolve to trisolve_f32)
     use_f32_alpha = _use_f32_alpha(cfg, allow_f32_march=per_state)
-    # the fused Pallas march consumes the same normalized-f32 table
-    # contract as trisolve_f32 (ops/march_tri.py)
-    use_f32_march = (not per_state and _resolve_march(cfg)
-                     in ("trisolve_f32", "trisolve_pallas"))
-    # Gamma/alphaTilde join the native-f32 ladder under the same
-    # conditions as the alpha table (round 4): one small f32 program
-    # replaces the staged emulated-f64 channel programs. Dirac keeps
-    # the alphaTilde s-t/s-u interference as a staged f64 program
-    # (nr_gamma_alphatilde_f32 docstring); phi-phi channels stay f64.
-    # Follows the march pin exactly (use_f32_march OR the alpha-f32
-    # conditions) so tools/tpu_crosscheck.py --nr compares the SAME
-    # algorithm on both backends.
+    use_f32_march = not per_state and _resolve_march(cfg) == "trisolve_f32"
+    # Gamma/alphaTilde join the f32 ladder under the same conditions
+    # as the alpha table: one small f32 program replaces the staged f64
+    # channel programs. Dirac keeps the alphaTilde s-t/s-u interference
+    # as a staged f64 program (nr_gamma_alphatilde_f32 docstring);
+    # phi-phi channels stay f64.
     use_f32_gt = (not per_state
                   and (use_f32_march
                        or _use_f32_alpha(cfg, allow_f32_march=True)))
@@ -736,19 +697,19 @@ def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None,
             out.append(acc)
             continue
         if table == "alpha" and use_f32_march:
-            # native-f32 march consumes the NORMALIZED f32 table + pref
+            # float32 march consumes the NORMALIZED f32 table + pref
             a32, pref = _alpha_f32_builder_jit(cfg, batched, True)(params)
             if cfg.phiphi:
                 # g^4-free f32 fold: pref IS g^4, so the pp channel
                 # joins normalized — no weak-coupling g^4*val
-                # intermediate (underflows emulated f64 on TPU), and
-                # the stencil contraction runs native f32 (_pp_f32).
+                # intermediate below float32's exponent range, and
+                # the stencil contraction runs in f32 (_pp_f32).
                 a32 = a32 + _pp_norm_builder_jit(cfg, batched)(
                     params, _pp_f32(pp_tables))
             out.append((a32, pref))
             continue
         if table == "alpha" and use_f32_alpha:
-            # native-f32 quadrature build covers s+t_u+tu+st in one
+            # float32 quadrature build covers s+t_u+tu+st in one
             # cheap program; the spline-backed pp channel keeps its f64
             # join but contracts the stencil in f32 (_pp_f32)
             acc = _alpha_f32_builder_jit(cfg, batched,
@@ -780,13 +741,6 @@ def evolve_core(params: PhysicsParams, cfg: Config, pp_tables=None,
     NE = cfg.N_bins_E
     Nz = gr.N_steps_z
     march = _resolve_march(cfg)
-    if march == "trisolve_pallas":
-        # evolve_core runs per-element (vmap/chunked contexts) and
-        # cannot host a pallas_call; the XLA blocked-Neumann march
-        # consumes the identical table/row pipeline (solver association
-        # differs at f32 round-off). The fused kernel path lives in
-        # ops/march_tri (grid_scan / evolve dispatch there).
-        march = "trisolve_f32"
 
     Wsq = jnp.asarray(mixing.pmns_sq(cfg.normal_ordering))  # (3, 3)
     Wf = Wsq[cfg.flav]  # (3,)
@@ -813,7 +767,7 @@ def evolve_core(params: PhysicsParams, cfg: Config, pp_tables=None,
             params, cfg, pp_tables=pp_tables)
         tblA = None
     elif march == "rank1_f32" and cfg.table_dtype in ("auto", "f32"):
-        # Native-f32 s-channel table build (kernels_f32): the dominant
+        # Float32 s-channel table build (kernels_f32): the dominant
         # cost of the headline evolve drops an order of magnitude; the
         # normalized tables come with f64 scalar prefactors applied
         # inside the (window-safe) f64 row groupings below.
@@ -847,8 +801,8 @@ def evolve_core(params: PhysicsParams, cfg: Config, pp_tables=None,
         elif march in ("rank1", "rank1_f32"):
             # Rank-one factorization of the alpha table: no (NEXT, NEXT)
             # materialization at all. Stored pre-scaled by 2^100 so the
-            # weak-coupling table (raw values down to ~1e-50) survives
-            # the TPU emulated-f64 exponent window in storage; the
+            # weak-coupling table (raw values down to ~1e-50) stays
+            # inside float32's exponent range in storage; the
             # consumers pair the exact 2^-100 with the bin widths.
             rho_ext = kernels.alpha_s_rho(
                 gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf,
@@ -875,7 +829,7 @@ def evolve_core(params: PhysicsParams, cfg: Config, pp_tables=None,
         ``lum`` (the per-bin source integral at this node) is precomputed
         for ALL nodes before the scan: inside the scan it would evaluate
         the source's polylogarithm chains as 78 sequential latency-bound
-        emulated-f64 programs; outside it is one vectorized (Nz, NE) call.
+        steps; outside it is one vectorized (Nz, NE) call.
         """
         zim = z[i - 1]
         ndfac = sources.get_nd(zim) / (1.0 + zim) ** 2
@@ -929,9 +883,9 @@ def evolve_core(params: PhysicsParams, cfg: Config, pp_tables=None,
         ndfac, pref, Zdr, coup = node_common(flux, i, lum)
         # RANGE SAFETY: the raw accumulation weight rho*nd/dE sits around
         # 1e-37 (and the raw rho TABLE itself under ~1e-38 for weak
-        # couplings) — at the floor of the f32 exponent range that TPU
-        # f64 emulation carries, where entries flush to zero and
-        # silently kill regeneration. rho_ext is therefore STORED
+        # couplings) — at the floor of the f32 exponent range, where an
+        # f64 emulated as float32 pairs flushes entries to zero and
+        # silently kills regeneration. rho_ext is therefore STORED
         # pre-scaled by 2^100 (kernels.alpha_s_rho(scaled=True)); every
         # use pairs c (scaled up) with d (scaled down), so CPU f64
         # results are bit-identical.
@@ -941,7 +895,7 @@ def evolve_core(params: PhysicsParams, cfg: Config, pp_tables=None,
         U, V = _node_affine(pref, Zdr, coup, lum, flux, Wf)
         c_w = rho_w * inv_dE  # accumulation weight of each source bin
         # d_w (target-bin width) multiplies the tiny c_w/cum factors, NOT
-        # U, whose pref ~ 1e31 would overflow the emulated-f64 range.
+        # U, whose pref ~ 1e31 would overflow float32's range.
         a = 1.0 + (c_w * d_w) * (U @ Wf)
         b = c_w * (V @ Wf)
 
@@ -1083,18 +1037,10 @@ def evolve(params: PhysicsParams, cfg: Config, pp_tables=None) -> EvolveResult:
 
     Non-resonant configurations build the kernel tables with the staged
     per-channel programs (build_tables) and feed them to a small jitted
-    march — one monolithic program would take >19 min to compile on TPU.
+    march — one monolithic program is one very large compile.
     """
     if cfg.extrapolation == "raise":
         check_pp_extrapolation(params, cfg, pp_tables)
-    if _resolve_march(cfg) == "trisolve_pallas":
-        # the fused march is inherently batched (kernel grid over batch
-        # chunks); a single point rides as a batch of one
-        from nusiprop_tpu.ops import march_tri
-
-        res = march_tri.evolve_trisolve_fused(
-            jax.tree.map(lambda x: x[None], params), cfg, pp_tables)
-        return jax.tree.map(lambda x: x[0], res)
     if _resolve_march(cfg) not in ("rank1", "rank1_f32"):
         tables = build_tables(params, cfg, pp_tables=pp_tables)
         return _jitted_march_with_tables(cfg)(params, tables)
@@ -1195,7 +1141,7 @@ def _march_general(params: PhysicsParams, Q, tables, cfg: Config) -> EvolveResul
     flux0 = jnp.zeros((3, NE), dtype=jnp.float64)
     steps = jnp.arange(Nz - 1, 0, -1)
     # source integrals precomputed outside the scan (cf. the diagonal
-    # marches: in-scan polylog chains are latency-bound on TPU)
+    # marches: in-scan polylog chains are latency-bound)
     lum_all = jax.vmap(
         lambda zz: _source_lum(cfg, zz, gr.Emin, gr.Emax, params.si,
                                norm_total))(z[steps])

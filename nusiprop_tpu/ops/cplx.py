@@ -1,10 +1,10 @@
 """Complex arithmetic as explicit (re, im) float64 pairs.
 
-TPUs do not support complex dtypes (XLA rejects C64/C128 element types),
+Not every XLA backend supports complex dtypes (C64/C128 element types),
 but the s-t interference kernels need complex dilogarithms
 (nuSIprop.hpp:842-872, 1134-1186, 1427-1467). This module provides a
 minimal complex type built from two float64 arrays so those channels
-compile for TPU; on CPU it produces bit-identical results to complex128
+compile on any backend; on CPU it produces bit-identical results to complex128
 for the operations used here.
 
 ``Cx`` is a NamedTuple (hence a pytree) with operator overloads; real

@@ -1,6 +1,6 @@
 """N-dimensional local-cubic spline interpolation via vectorized gathers.
 
-TPU-native equivalent of the reference's ``interp::spline_ND``
+Array-program equivalent of the reference's ``interp::spline_ND``
 (interp.hpp:14-638): a cubic-Hermite scheme with finite-difference
 tangents expressed as per-node weight polynomials over a <=4-node stencil
 per axis (computeWeights, interp.hpp:576-636), tensor-multiplied across
@@ -18,8 +18,8 @@ Semantics matched to the reference:
   * the stencil is 3 nodes at the first/last interval and 4 in the
     interior, with the same edge weight formulas;
   * out-of-range queries: the reference calls exit(1)
-    (interp.hpp:354-361). Aborting is not expressible in compiled TPU
-    code; we CLAMP the query to the valid open interval instead and
+    (interp.hpp:354-361). Aborting is not expressible in compiled
+    device code; we CLAMP the query to the valid open interval instead and
     expose ``out_of_bounds`` for callers that want to check. This is the
     documented deviation.
 """
@@ -132,9 +132,9 @@ class SplineND:
 
         ``eval`` follows the values dtype for the stencil contraction
         (see eval), so ``astype(jnp.float32)`` turns the table into a
-        native-f32 interpolator — the TPU-fast path for the phi-phi
-        kernel builds, where the 4^N-point gather-and-contract otherwise
-        runs in emulated f64. Nodes and weight tensors stay f64: the
+        float32 interpolator — the f32 path for the phi-phi kernel
+        builds, where the 4^N-point gather-and-contract is the dominant
+        op count. Nodes and weight tensors stay f64: the
         index arithmetic and weight polynomials are O(4N) per query
         versus the contraction's O(4^N) and keep full accuracy for free.
         """

@@ -1,6 +1,6 @@
 """Special functions for the self-interaction kernels, in pure JAX.
 
-The TPU has no GSL and no polylogarithm library, so everything here is
+No GSL and no polylogarithm library run on the device, so everything here is
 implemented from scratch in float64 with branch-free region reduction
 (``jnp.where`` over clamped arguments so every branch is evaluated on a
 safe input). All functions are elementwise and vectorize/vmap freely.
@@ -105,8 +105,8 @@ LI3_LOG_C = (
 def log1p_safe(x):
     """log(1+x) robust to huge ``x``.
 
-    On the TPU's f64 emulation (float32-pair arithmetic with float32's
-    exponent range) any argument above ~3.4e38 IS inf, and both
+    Under an f64 emulated as float32 pairs (float32's exponent range)
+    any argument above ~3.4e38 IS inf, and both
     ``jnp.log1p`` and ``jnp.log`` return NaN at inf there (on true-f64
     CPU both are finite and correct up to ~1.8e308 — the original
     version of this docstring mis-attributed the failure to XLA's
@@ -144,8 +144,8 @@ def log1p_sq_ratio(x, g):
     The s-t/s-u interference channels (nuSIprop.hpp:842-872, 1134-1186,
     1427-1467) evaluate log(1 + v^2/gr^2) with gr = Gamma/mphi ~
     g^2/(16 pi). At weak coupling (g = 1e-12: gr ~ 2e-26) gr^2
-    underflows the f32 exponent window that TPU f64 emulation carries,
-    the ratio becomes inf, and log(inf) is NaN on that backend — this
+    underflows float32's exponent range, the ratio becomes inf, and
+    log(inf) is NaN there — this
     NaN-poisoned whole Gamma/alphaTilde tables and silently zeroed the
     run_exclusion free-streaming mock. Decompose instead as
 
@@ -297,8 +297,8 @@ def li2c(z):
 
 
 # ---------------------------------------------------------------------------
-# TPU-compilable complex dilogarithm on (re, im) float64 pairs.
-# TPUs reject complex dtypes, so the s-t interference kernels use these
+# Complex dilogarithm on (re, im) float64 pairs, for backends without
+# complex dtypes: the s-t interference kernels use these
 # pair-based versions; they mirror li2c / dilogdiff_complex exactly.
 # ---------------------------------------------------------------------------
 
@@ -316,7 +316,7 @@ def _li2_series_cx(z):
 def li2cx(z):
     """Complex dilogarithm on a Cx pair — same algorithm and branch-cut
     convention as ``li2c`` (GSL: Im Li2(x - i0) = -pi ln x on the cut),
-    but free of complex dtypes so it compiles for TPU."""
+    but free of complex dtypes so it compiles on any backend."""
     az2 = z.re * z.re + z.im * z.im
     big = az2 > 1.0
     is_zero = (z.re == 0.0) & (z.im == 0.0)

@@ -2,15 +2,15 @@
 
 The reference workflow scans (g, mphi) points serially via
 set_parameters()+evolve() (nuSIprop.pyx:60-90, test.py:76-83). The
-TPU-native scaling axis is this parameter grid: a batched PhysicsParams
+scaling axis here is this parameter grid: a batched PhysicsParams
 pytree turns the whole scan into ONE compiled program whose inner
 3x3 solves and kernel contractions become batched matmuls, and
-`jax.sharding` splits the batch across ICI-connected chips with no
-per-step cross-device traffic (the points are independent; only the
-final gather of spectra moves data).
+`jax.sharding` splits the batch across devices with no per-step
+cross-device traffic (the points are independent; only the final
+gather of spectra moves data).
 """
 
-from functools import lru_cache, partial
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -89,11 +89,6 @@ def grid_scan(params: PhysicsParams, cfg: Config, chunk_size: int | None = None,
     per-channel programs (transport.build_tables) — see docs/DESIGN.md.
     """
     march = transport._resolve_march(cfg)
-    if march == "trisolve_pallas":
-        from nusiprop_tpu.ops import march_tri
-
-        return march_tri.evolve_trisolve_fused(params, cfg,
-                                               pp_tables=pp_tables)
     if march not in ("rank1", "rank1_f32") and not chunk_size:
         tables = transport.build_tables(params, cfg, pp_tables=pp_tables,
                                         batched=True)
@@ -181,12 +176,15 @@ def sharded_grid_scan(params: PhysicsParams, cfg: Config,
                       pp_tables=None):
     """Shard the parameter batch across a device mesh and evolve.
 
-    Each device evolves its shard of scan points; results come back with
-    the same sharding (gather happens only if the caller materializes the
-    full array). Batch size must divide the mesh size. pp_tables (the
+    Places the batch on the mesh (one slice of points per device) and
+    runs ``grid_scan`` on it: the same programs as an unsharded scan,
+    partitioned along the batch, so each device evolves its shard with
+    the per-point arithmetic of a one-device run. Results come back with
+    the same sharding (gather happens only if the caller materializes
+    the full array). Batch size must divide the mesh size. pp_tables (the
     phi-phi interpolation tables, nuSIprop.hpp:166-170) are replicated
-    onto every device — they are read-only gather sources, so replication
-    costs one broadcast and no per-step traffic.
+    onto every device — they are read-only gather sources, so
+    replication costs one broadcast and no per-step traffic.
     """
     if mesh is None:
         import numpy as np
@@ -201,29 +199,8 @@ def sharded_grid_scan(params: PhysicsParams, cfg: Config,
             f"the grid (e.g. repeat the last point) to a multiple of {n_dev}")
     sharding = NamedSharding(mesh, P(axis_name))
     params = jax.tree.map(lambda x: jax.device_put(x, sharding), params)
-    if pp_tables is None:
-        return _sharded_scan_jit(cfg, sharding)(params)
-    replicated = NamedSharding(mesh, P())
-    pp_tables = jax.tree.map(lambda x: jax.device_put(x, replicated),
-                             pp_tables)
-    return _sharded_scan_pp_jit(cfg, sharding, replicated)(params, pp_tables)
-
-
-@lru_cache(maxsize=None)
-def _sharded_scan_jit(cfg: Config, sharding: NamedSharding):
-    # cached per (Config, sharding): a fresh jit object per call would
-    # retrace every sharded scan
-    return jax.jit(
-        lambda p: jax.vmap(lambda q: transport.evolve_core(q, cfg))(p),
-        in_shardings=(sharding,),
-    )
-
-
-@lru_cache(maxsize=None)
-def _sharded_scan_pp_jit(cfg: Config, sharding: NamedSharding,
-                         replicated: NamedSharding):
-    return jax.jit(
-        lambda p, t: jax.vmap(
-            lambda q: transport.evolve_core(q, cfg, pp_tables=t))(p),
-        in_shardings=(sharding, replicated),
-    )
+    if pp_tables is not None:
+        replicated = NamedSharding(mesh, P())
+        pp_tables = jax.tree.map(lambda x: jax.device_put(x, replicated),
+                                 pp_tables)
+    return grid_scan(params, cfg, pp_tables=pp_tables)

@@ -198,7 +198,7 @@ def test_per_index_getters_unevolved(capsys):
 
 def test_single_index_getter_returns_row(capsys):
     """get_flux(i) / get_flux_fla(i) with one index: the whole spectrum
-    of that state (previously a TypeError — VERDICT r3 item 10); bad
+    of that state (previously a TypeError); bad
     index keeps warn-and-zero semantics; j alone is a clean TypeError."""
     ev = nu.Evolver(**GOLDEN_KW).evolve()
     np.testing.assert_array_equal(ev.get_flux(1), ev.get_flux()[1])
@@ -232,9 +232,9 @@ def test_health_signal_default_on(capsys):
 
 
 def test_health_signal_free_streaming_no_false_positive(capsys):
-    """Red/green gate for the round-4 false-positive (VERDICT r4 weak
-    #3): at g=1e-12 the kernel tables are pure round-off noise around
-    zero (worst_rel_neg ~ -1) but the flux free-streams, so the
+    """Red/green gate for a health-scream false positive: at g=1e-12
+    the kernel tables are pure round-off noise around zero
+    (worst_rel_neg ~ -1) but the flux free-streams, so the
     default-on health check must stay SILENT; the same negativity with
     a dynamically relevant interaction depth must still scream."""
     ev = nu.Evolver(**{**GOLDEN_KW, "g": 1e-12}).evolve()

@@ -79,8 +79,7 @@ def test_run_fit():
 def test_run_exclusion_production_mode(tmp_path):
     """The reference-default channel set (non_resonant + phiphi) as one
     chunked batched scan — tiny grid/bins so the CPU f64 build stays
-    test-sized; the full-size production run is the recorded BENCH_NOTES
-    entry."""
+    test-sized."""
     out = _run("run_exclusion.py", "--production", "3", "4",
                str(tmp_path / "contour.txt"), "--bins", "40",
                "--chunk", "6", "--f32-tables", timeout=1200)

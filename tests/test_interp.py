@@ -124,7 +124,7 @@ class TestSplineND:
         """astype(float32) keeps the index arithmetic and weight
         polynomials in f64 but contracts the stencil in the values
         dtype: the result is f32 and within pure-f32 round-off of the
-        f64 interpolant (the TPU-fast path for the phi-phi tables)."""
+        f64 interpolant (the f32 path for the phi-phi tables)."""
         xs = [random_grid(7), random_grid(6, 1.0, 2.0),
               random_grid(8, -1.0, 1.0)]
         X, Y, Z = np.meshgrid(*xs, indexing="ij")

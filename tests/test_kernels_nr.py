@@ -399,11 +399,11 @@ class TestPositivity:
 
 
 class TestWeakCouplingWindow:
-    """The s-t/s-u channels must survive the float32 exponent window
-    that TPU f64 emulation carries, down to the run_exclusion
-    free-streaming coupling g = 1e-12 (gr^2 ~ 4e-52 underflows; the
-    pre-guard closed forms NaN/inf-poisoned whole tables there —
-    ADVICE r3, fixed via specfun.log1p_sq_ratio).
+    """The s-t/s-u channels must survive float32's exponent window
+    (the f32 paths, or an f64 emulated as float32 pairs), down to the
+    run_exclusion free-streaming coupling g = 1e-12 (gr^2 ~ 4e-52
+    underflows; the pre-guard closed forms NaN/inf-poisoned whole
+    tables there — fixed via specfun.log1p_sq_ratio).
 
     Pure-f32 evaluation on PHYSICAL strict-upper-pair coordinates is
     the hardware-free emulation of that window (stricter in mantissa,

@@ -316,7 +316,7 @@ def test_trisolve_f32_march_matches_f64(case):
 @pytest.mark.parametrize("case", [HIGH_E_MAJ, GOLDEN_NR],
                          ids=["highE", "golden-nr"])
 def test_trisolve_f32_rows_survive_narrow_exponent_window(case):
-    """Same TPU-exponent-window guard as the rank1_f32 march
+    """Same float32-exponent-window guard as the rank1_f32 march
     (test_march.py::test_f32_rows_survive_narrow_exponent_window): run
     the trisolve_f32 row precompute through a float32-window flush
     emulator and require the flux to stay inside the physics gate."""

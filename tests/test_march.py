@@ -95,17 +95,16 @@ def test_march_unroll_identical(base_cfg):
 @pytest.mark.parametrize("mphi,g", [(1e5, 1e-2), (2.7e5, 1e-2), (5e6, 1e-6)])
 @pytest.mark.parametrize("tables", ["f64", "f32"])
 def test_f32_rows_survive_narrow_exponent_window(mphi, g, tables):
-    """Guard against the TPU emulated-f64 exponent window (float32's).
+    """Guard the row precompute against float32's exponent window.
 
-    On TPU, every f64 intermediate of the row precompute lives in
-    double-single arithmetic whose exponent range is float32's: any
-    grouping that wanders below ~1.2e-38 flushes to zero and silently
-    corrupts the rows (this killed regeneration via rho*ndfac ~ 1e-40
-    before the _RSCALE pairing). The row builder routes every grouping
-    through a ``window`` hook; passing a flush emulator reproduces the
-    TPU's range behavior at full f64 precision, so window bugs are
-    caught hardware-free. The real-TPU gate is
-    tools/tpu_crosscheck.py --f32.
+    Under an f64 emulated as float32 pairs (double-single arithmetic),
+    any grouping that wanders below ~1.2e-38 flushes to zero and
+    silently corrupts the rows (this killed regeneration via
+    rho*ndfac ~ 1e-40 before the _RSCALE pairing). The row builder
+    routes every grouping through a ``window`` hook; passing a flush
+    emulator reproduces that range behavior at full f64 precision, so
+    window bugs are caught on any machine. On the card, chip_smoke.py's
+    f32_modes phase checks the f32 march against the f64 one.
     """
     import jax
     import jax.numpy as jnp
@@ -150,7 +149,7 @@ def test_f32_rows_survive_narrow_exponent_window(mphi, g, tables):
                                   Wf, majorana=cfg.majorana, scaled=True)
         prefs = (1.0, 1.0, transport._INV_RSCALE)
 
-    # tables arrive already flushed on TPU (they are built there too)
+    # tables built under the same window arrive already flushed
     xs, scale = transport._rank1_f32_rows(
         cfg, gr, p, norm_total, flush(tblG), flush(tblAt), flush(rho),
         dE_ext, window=flush, prefs=prefs)
@@ -179,7 +178,7 @@ def test_rank1_f32_strong_coupling():
 
 def test_scaled_rho_survives_f32_window():
     """The raw weak-coupling rho table sits at ~1e-39..1e-50 — entirely
-    below the f32 exponent floor that TPU f64 emulation carries, so it
+    below the f32 exponent floor, so under float32's range it
     would flush IN STORAGE before any consumer rescale. The scaled=True
     form must keep every physically relevant entry above the floor."""
     import jax.numpy as jnp

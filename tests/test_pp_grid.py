@@ -105,7 +105,7 @@ def test_grid_vs_pairs_norm_f64(tables, mphi, mntot, lo, hi, N, majorana):
 
 
 def test_grid_vs_pairs_norm_f32(tables):
-    """f32-cast tables: the TPU production dtype. Different summation
+    """f32-cast tables (the trisolve_f32 path). Different summation
     order (matmul vs per-pair fma chain) -> f32 round-off gate."""
     t32 = tables._replace(alpha=tables.alpha.astype(jnp.float32))
     cfg = Config(N_bins_E=48, lEmin=9.0, lEmax=14.0, non_resonant=True,

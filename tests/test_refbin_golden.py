@@ -7,8 +7,8 @@ which refuses to write fixtures unless the shim-built binary first
 reproduces the committed tests/data/data_massless.txt BYTE-IDENTICALLY.
 
 Unlike tests/data/data_nonresonant_cpp.txt (our own pinned output), these
-are true reference products, so they close the round-1 verdict's "no
-NR-channel validation against the actual reference binary" hole: the
+are true reference products, so they close the "no NR-channel
+validation against the actual reference binary" hole: the
 non-resonant fixture here is the first reference-produced spectrum with
 non_resonant=true that the JAX engine is gated on.
 
@@ -103,7 +103,8 @@ def _evolve(name: str, table_dtype: str):
     if cfg.phiphi:
         # the reference ran with the full-resolution splines; the engine
         # ships medium — the case gates absorb the measured medium-vs-full
-        # delta (1.5e-5, BENCH_NOTES) on top of the nr noise envelope
+        # delta (1.5e-5, tools/validate_full_tables.py) on top of the nr
+        # noise envelope
         from nusiprop_tpu.models import pp_tables as _ppt
 
         pp = _ppt.load_default()
@@ -137,9 +138,9 @@ def test_f64_flux_matches_reference(name, ref):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_f32_flux_matches_reference_within_envelope(name, ref):
-    """Native-f32 paths vs the genuine reference, gated to bins within
-    10 decades of the peak (below that the DSNB tail sits under the TPU
-    f32 representable envelope — tools/tpu_crosscheck.py convention)."""
+    """Float32 paths vs the genuine reference, gated to bins within
+    10 decades of the peak (below that the DSNB tail sits under the f32
+    representable envelope — chip_smoke.py's convention)."""
     _, _, tight = CASES[name]
     flx = np.asarray(_evolve(name, "f32").flux_fla)
     rflx = ref[name][:, 1:].T

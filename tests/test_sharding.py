@@ -74,12 +74,12 @@ def test_sharded_scan_jit_cached(cfg, params16):
     one jitted program instead of retracing per call."""
     from nusiprop_tpu.parallel import scan as scan_mod
 
-    scan_mod._sharded_scan_jit.cache_clear()
+    scan_mod._grid_scan_jit.clear_cache()
     sharded_grid_scan(params16, cfg)
+    assert scan_mod._grid_scan_jit._cache_size() == 1
     sharded_grid_scan(
         jax.tree.map(lambda x: x * (1.0 + 1e-12), params16), cfg)
-    info = scan_mod._sharded_scan_jit.cache_info()
-    assert info.misses == 1 and info.hits == 1, info
+    assert scan_mod._grid_scan_jit._cache_size() == 1
 
 
 def test_uneven_batch_raises(cfg):
@@ -130,8 +130,8 @@ def test_phiphi_sharded_matches_unsharded():
 
 
 def test_nonresonant_f32_march_sharded_matches_unsharded():
-    """The native-f32 non-resonant march (the TPU production path for
-    the reference's default channel set) under mesh sharding: each
+    """The float32 non-resonant march (march='trisolve_f32', the
+    reference's default channel set) under mesh sharding: each
     device runs its shard's trisolve_f32 march; results must equal the
     unsharded batched evolve bit-for-bit (same program per point)."""
     cfg = Config(N_bins_E=24, lEmin=4.0, lEmax=9.0, non_resonant=True,

@@ -197,15 +197,15 @@ class TestQuadrature:
 
 
 class TestLog1pSafe:
-    """VERDICT r3 item 2: pin the weak-coupling log guards.
+    """Pin the weak-coupling log guards.
 
     log1p_safe must track mpmath log1p over the whole f64 range on CPU
     and return inf (never NaN) at inf; log1p_sq_ratio must equal
     log1p((x/g)^2) without ever forming the ratio — the s-t/s-u
     channels feed it v^2/gr^2 arguments whose direct evaluation
-    overflows the f32 exponent window that TPU f64 emulation carries
-    (gr^2 underflows at g ~< 1e-9; ADVICE r3 confirmed NaN-poisoned
-    tables at g = 1e-12 on hardware before the guard).
+    overflows float32's exponent window (gr^2 underflows at g ~< 1e-9;
+    NaN-poisoned tables at g = 1e-12 were seen under that window before
+    the guard).
     """
 
     def test_log1p_safe_oracle(self):
@@ -243,8 +243,7 @@ class TestLog1pSafe:
                               np.asarray(direct))
 
     def test_log1p_sq_ratio_f32_window(self):
-        """In pure float32 (the exponent window TPU f64-emulation
-        carries) the ratio form is inf -> NaN territory; the log-space
+        """In pure float32 the ratio form is inf -> NaN territory; the log-space
         form stays finite and accurate. Red if the guard is reverted
         to log1p_safe(x**2 / g**2)."""
         f32 = jnp.float32

@@ -1,5 +1,5 @@
 """Staged per-channel table builds must equal the monolithic in-graph
-build (the staging exists purely to bound TPU compile times)."""
+build (the staging exists purely to bound compile times)."""
 
 import jax
 import jax.numpy as jnp
@@ -54,7 +54,7 @@ def test_staged_batched_matches_single():
 
 def test_pp_alpha_chunked_matches_unchunked(monkeypatch):
     """The lax.map pair-chunking of the spline-backed pp alpha program
-    (a TPU compiler-memory bound, see kernels._PP_CHUNK) is elementwise
+    (a compiler-memory bound, see kernels._PP_CHUNK) is elementwise
     restructuring only: forcing a small chunk on a small grid must
     reproduce the unchunked build up to fusion-dependent last-ulp
     rounding (the chunk body compiles standalone, so XLA's FMA/fusion

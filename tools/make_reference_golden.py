@@ -14,7 +14,7 @@ battery changes. Configurations were screened so the reference runs them
 WARNING-FREE (its closed forms print "Negative cross section ...
 roundoff" complaints on stderr in deep sub-resonance corners; fixtures
 avoid that regime, where the reference's own numbers are cancellation
-noise — see BENCH_NOTES "Hardware-faithfulness" table).
+noise — see docs/DESIGN.md and docs/VALIDATION.md).
 
 Usage:
     python tools/make_reference_golden.py [--ref /root/reference]

@@ -1,4 +1,4 @@
-"""Validate a generated phi-phi table file (VERDICT round-2 item 5).
+"""Validate a generated phi-phi table file.
 
 Two checks:
   1. spot-check >= N entries of both tables against adaptive scipy
